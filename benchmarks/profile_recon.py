@@ -1,11 +1,11 @@
 """Phase profile of the sparse NDL reconstruction at torus scale.
 
 Times fused PREFIXES of the real reconstruction pipeline (chain scan,
-+patches, +coding, +grouping), each as one jit ending in a scalar
-fence, so XLA's layout/fusion choices match the production program.
-(An ISOLATED chain-scan jit measures ~100x slower than the same scan
-inside the real program: the stacked (M, k) embs output gets a padded
-tiny-minor-dim layout that nothing consumes — docs/DESIGN.md §5.)
++patches, +coding, +grouping), each as one jit ending in a scalar, so
+XLA's layout/fusion choices match the production program. (An ISOLATED
+chain-scan jit can be far slower than the same scan inside the real
+program: the stacked (M, k) embs output gets a padded tiny-minor-dim
+layout that nothing consumes — docs/DESIGN.md §5.)
 Phase costs are successive differences. Run manually:
 
     python benchmarks/profile_recon.py --side 360 [--csr] [--chains N]
@@ -24,13 +24,14 @@ import jax.numpy as jnp
 
 
 def fence(x):
-    return float(jnp.sum(jnp.asarray(x, jnp.float32) * 0 + 1) + 0 * jnp.sum(x))
+    """Wait until every array in ``x`` is computed; returns ``x``."""
+    return jax.block_until_ready(x)
 
 
 def steady(fn):
-    fn()
+    fence(fn())
     t0 = time.time()
-    out = fn()
+    out = fence(fn())
     return time.time() - t0, out
 
 
@@ -108,7 +109,7 @@ def main():
             recons_iter=samples, alpha=0.0, sub_iter=30,
             use_glauber=not args.pivot, num_chains=chains,
             include_self=False)
-        t_whole, _ = steady(lambda: (lambda r: (fence(r[2]), r)[1])(run()))
+        t_whole, _ = steady(run)
         print(f"whole sparse recon {t_whole:7.2f}s", file=sys.stderr)
         return
 
@@ -147,7 +148,7 @@ def main():
     names = ["chain scan", "+patches", "+code/vals", "+grouping"]
     prev = 0.0
     for upto in range(4):
-        t, _ = steady(lambda u=upto: float(jitted(g, ck, u)))
+        t, _ = steady(lambda u=upto: jitted(g, ck, u))
         print(f"{names[upto]:<12} {t:7.2f}s  (delta {t - prev:+7.2f}s)",
               file=sys.stderr)
         prev = t

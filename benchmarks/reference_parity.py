@@ -149,8 +149,7 @@ def main():
         "relative_gap": round(rel, 5),
         "within_1pct": bool(rel <= 0.01),
         # walls at the matched config (ours here runs on CPU float64 for
-        # numerics parity; the TPU walls live in results.json's
-        # image_grayscale_onmf entry)
+        # numerics parity)
         "wall_s_reference": round(t_ref, 2),
         "wall_s_ours_cpu": round(t_ours, 2),
     }
@@ -164,12 +163,6 @@ def main():
         data_out["recon_err_vs_reference"] = result
         with open(args.out, "w") as f:
             json.dump(data_out, f, indent=2)
-        # atomic record→table refresh (gen_tables.py)
-        import subprocess
-        subprocess.run(
-            [sys.executable,
-             os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "gen_tables.py")], check=False)
 
 
 if __name__ == "__main__":

@@ -213,12 +213,6 @@ def main():
         data_out["ontf_recon_err_vs_reference"] = result
         with open(args.out, "w") as f:
             json.dump(data_out, f, indent=2)
-        # atomic record→table refresh (gen_tables.py)
-        import subprocess
-        subprocess.run(
-            [sys.executable,
-             os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "gen_tables.py")], check=False)
 
 
 if __name__ == "__main__":

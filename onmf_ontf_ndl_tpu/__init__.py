@@ -1,4 +1,4 @@
-"""TPU-native online nonnegative matrix/tensor factorization & network dictionary learning.
+"""Online nonnegative matrix/tensor factorization & network dictionary learning in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 HanbaekLyu/ONMF_ONTF_NDL (online NMF/NTF for Markovian data + image /

@@ -1,6 +1,6 @@
 """Image dictionary learning + reconstruction (the canonical ONMF pipeline).
 
-TPU-native re-design of ``Image_Reconstructor``
+A compiled re-design of ``Image_Reconstructor``
 (``/root/reference/image_reconstruction.py:14-406``): the entire outer
 training loop — random patch extraction, inner online-NMF iterations,
 state threading — is ONE jitted ``lax.scan``; training never leaves the
@@ -122,7 +122,7 @@ def reconstruct(
     ``:340-356``); otherwise a strided grid exclusive of the last start.
 
     Default ``use_stopping=False``: reconstruction runs the full fixed
-    sweep count (routing to the Pallas kernel on TPU). The reference's
+    sweep count (one kernel launch on a GPU). The reference's
     batched early-stopping rule needs a spectral norm of the whole
     (r, num_patches) iterate per sweep, which is prohibitively slow at
     reconstruction widths; fixed sweeps only ever run MORE coder
@@ -269,7 +269,7 @@ class ImageReconstructor:
                     epochs=units,
                     alpha=self.alpha, beta=self.beta,
                     use_stopping=not self.fast,
-                    backend=resolve_backend("auto", not self.fast),
+                    backend=resolve_backend("auto"),
                     coder=self.coder,
                 )
         else:
@@ -286,7 +286,7 @@ class ImageReconstructor:
                     patch_size=self.patch_size,
                     alpha=self.alpha, beta=self.beta,
                     use_stopping=not self.fast,
-                    backend=resolve_backend("auto", not self.fast),
+                    backend=resolve_backend("auto"),
                     subsample=self.subsample,
                     coder=self.coder,
                 )

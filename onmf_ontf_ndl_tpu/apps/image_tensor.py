@@ -1,6 +1,6 @@
 """Color-image dictionary learning on (k^2, 3, n) patch tensors via ONTF.
 
-TPU-native re-design of ``Image_Reconstructor_tensor``
+A compiled re-design of ``Image_Reconstructor_tensor``
 (``/root/reference/image_reconstruction_tensor.py:15-328``): per outer
 iteration, random color patches are gathered into a (k^2, 3, n) tensor,
 mode-unfolded (``/root/reference/src/ontf.py:203-208``), and fed through
@@ -190,7 +190,7 @@ class ImageReconstructorTensor:
             alpha=self.alpha, beta=self.beta,
             sub_iter=self.coder_sub_iter,
             use_stopping=not self.fast,
-            backend=_resolve_backend("auto", not self.fast),
+            backend=_resolve_backend("auto"),
             coder=self._coder_method,
         )
         self.W = self.state.W

@@ -1,6 +1,6 @@
 """Dictionary learning along an Ising MCMC trajectory.
 
-TPU-native re-design of ``Ising_Reconstructor``
+A compiled re-design of ``Ising_Reconstructor``
 (``/root/reference/ising_reconstruction.py:14-201``): the whole
 trajectory loop — spin updates, random patch extraction, warm-started
 online NMF with the full ``C = agg X X^T`` statistic, surrogate-error
@@ -21,10 +21,7 @@ Parity notes:
   (``ising_subsampling_steps`` between learning rounds);
 - ``sampler="exact"`` runs the sequential Metropolis chain;
   ``sampler="checkerboard"`` (default) runs red/black sweeps covering at
-  least the same number of single-site updates;
-  ``sampler="checkerboard_pallas"`` runs them in the fused on-chip
-  kernel (``ops/pallas/ising_kernel.py``) — ~2x the XLA sweep
-  throughput on a v5e.
+  least the same number of single-site updates.
 """
 
 from __future__ import annotations
@@ -120,13 +117,6 @@ def ising_trajectory_learning(
             lat, _, _ = metropolis_chain(skey, lat, nsteps, J, H_field, T)
             return lat
         nsweeps = max(1, -(-nsteps // (n * n)))
-        if sampler == "checkerboard_pallas":
-            from onmf_ontf_ndl_tpu.ops.pallas.ising_kernel import (
-                checkerboard_sweeps_pallas)
-
-            seed = jax.random.randint(skey, (), 0, jnp.int32(2**31 - 1))
-            return checkerboard_sweeps_pallas(seed, lat, nsweeps, J,
-                                              H_field, T)
         return checkerboard_sweeps(skey, lat, nsweeps, J, H_field, T)
 
     # initial round (reference :113-136)
@@ -193,10 +183,9 @@ class IsingReconstructor:
         self.J = J
         self.field = field
         self.alpha = alpha
-        if sampler not in ("exact", "checkerboard", "checkerboard_pallas"):
+        if sampler not in ("exact", "checkerboard"):
             raise ValueError(
-                f"sampler must be 'exact', 'checkerboard' or "
-                f"'checkerboard_pallas', got {sampler!r}")
+                f"sampler must be 'exact' or 'checkerboard', got {sampler!r}")
         self.sampler = sampler
         self.update_lattice = update_lattice
         self.fast = fast
@@ -240,7 +229,7 @@ class IsingReconstructor:
             sampler=self.sampler, update_lattice=self.update_lattice,
             keep_trajectory=keep_trajectory,
             use_stopping=not self.fast,
-            backend=_resolve_backend("auto", not self.fast),
+            backend=_resolve_backend("auto"),
             coder=self.coder,
             subsample=self.subsample,
         )

@@ -141,7 +141,7 @@ class VideoDictionaryLearner:
             patch_size=self.patch_size,
             epochs=epochs, alpha=self.alpha, beta=self.beta,
             use_stopping=not self.fast,
-            backend=_resolve_backend("auto", not self.fast),
+            backend=_resolve_backend("auto"),
             coder=self.coder, subsample=self.subsample,
         )
         return self.state.W

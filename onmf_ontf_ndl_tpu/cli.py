@@ -78,12 +78,10 @@ def _build_cfg(cfg_cls, args):
 
 def main(argv=None):
     # persistent compilation cache: repeat CLI invocations at the same
-    # shapes skip the (remote) TPU compile entirely
-    import jax
+    # shapes skip the compile
+    from onmf_ontf_ndl_tpu.utils.runtime import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/onmf_ontf_ndl_tpu_xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     from onmf_ontf_ndl_tpu.utils import config as cfgs
     from onmf_ontf_ndl_tpu.utils.checkpoint import save_state
@@ -91,10 +89,11 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(
         prog="onmf-ontf-ndl-tpu",
-        description="TPU-native online NMF/NTF & network dictionary learning")
+        description="Online NMF/NTF & network dictionary learning in JAX")
     parser.add_argument("--out-dir", default="out")
     # multi-host launch (same command on every host; see
-    # parallel/multihost.py). --distributed alone autodetects on TPU pods.
+    # parallel/multihost.py). --distributed alone autodetects where a
+    # cluster environment tells JAX its coordinator.
     parser.add_argument("--distributed", action="store_true",
                         help="join the multi-process JAX runtime before "
                              "touching the backend")

@@ -1,8 +1,9 @@
 """Online nonnegative matrix factorization (ONMF) for streaming/Markovian data.
 
-Implements the online NMF of Lyu-Needell-Balzano (JMLR 21(251), 2020) the
-TPU way: the whole inner training loop is a single jitted ``lax.scan`` over
-an immutable :class:`OnmfState` pytree — no per-iteration host round trips.
+Implements the online NMF of Lyu-Needell-Balzano (JMLR 21(251), 2020) as
+one compiled program: the whole inner training loop is a single jitted
+``lax.scan`` over an immutable :class:`OnmfState` pytree — no
+per-iteration host round trips.
 
 Algorithm parity with the reference ``Online_NMF``
 (``/root/reference/src/onmf.py:20-226``):
@@ -74,12 +75,13 @@ def onmf_step(
       dict_from: "stale" updates W from the pre-step aggregates (reference
         semantics, ``/root/reference/src/onmf.py:161``); "fresh" uses the
         just-updated ones (paper semantics).
-      backend: "auto" | "xla" | "pallas" — the fused kernels are used for
-        the fixed-sweep path on TPU under "auto"/"pallas".
+      backend: "auto" | "xla" | "pallas" | "pallas_interpret" — "auto"
+        runs the bcd sweeps and dictionary update as GPU kernels on a GPU
+        and as XLA loops elsewhere (``ops.pallas.resolve_backend``).
       coder: "bcd" (reference-parity Gauss-Seidel sweeps), "fista"
-        (fully MXU-parallel accelerated projected gradient — same
-        objective, typically a better final objective at equal sweeps,
-        and much faster on TPU; an opt-in non-parity mode), or
+        (fully parallel accelerated projected gradient — same
+        objective, typically a better final objective at equal sweeps;
+        an opt-in non-parity mode), or
         "fista_bf16" (fista with bf16 matmul inputs + f32 accumulation
         — the mixed-precision production mode; objective-level quality
         asserted in tests/test_fista.py).
@@ -108,7 +110,7 @@ def onmf_step(
     sd = jnp.asarray(stopping_diff if use_stopping else 0.0, state.W.dtype)
     new_state, H = _step_inner(
         state, X, t, H0, alpha, beta, sub_iter, use_stopping, sd, dict_from,
-        resolve_backend(backend, use_stopping), coder=coder,
+        resolve_backend(backend), coder=coder,
     )
     return dataclasses.replace(new_state, key=key), H
 
@@ -155,15 +157,13 @@ def _train_scan(
 
     use_block = subsample and sampling == "block"
     if use_block:
-        # TPU-native sampling (opt-in; PARITY.md deviation #12): permute
-        # the pool once, then each step takes a CONTIGUOUS wrap-around
-        # block at a random offset. A random-column gather of a
-        # 16k-column batch costs ~87 us/step of random-access HBM; a
-        # dynamic_slice of the tiled permuted pool streams at full
-        # bandwidth (measured 101 -> 14 us/step at the bench shape,
-        # docs/DESIGN.md §2). Uniform per-column marginal; within-batch
-        # sampling is without-replacement per pool pass (vs the
-        # reference's iid-with-replacement draw).
+        # Block sampling (opt-in; PARITY.md deviation #12): permute the
+        # pool once, then each step takes a CONTIGUOUS wrap-around block
+        # at a random offset, a dynamic_slice that streams at memory
+        # bandwidth instead of a random-column gather. Uniform
+        # per-column marginal; within-batch sampling is
+        # without-replacement per pool pass (vs the reference's
+        # iid-with-replacement draw).
         key, pkey = jax.random.split(state.key)
         state = dataclasses.replace(state, key=key)
         perm = jax.random.permutation(pkey, n)
@@ -190,8 +190,7 @@ def _train_scan(
             idx = jax.random.randint(skey, (batch_size,), 0, n)
             Xb = jnp.take(X, idx, axis=1)
         else:
-            # full-batch path: no gather (TPUs execute dense ops far
-            # faster than gathers of the identity index set)
+            # full-batch path: no gather of the identity index set
             idx = None
             Xb = X
         H0 = jax.random.uniform(hkey, (r, Xb.shape[1]), dtype=X.dtype)
@@ -230,13 +229,12 @@ def _step_inner(
 ):
     """onmf_step with the stopping rule threaded as a traced value.
 
-    backend="pallas" fuses the Gauss-Seidel sweeps (fixed-sweep or
-    per-tile early-stopping, by use_stopping) and the BCD dictionary
-    update into single TPU kernels (ops/pallas/coder_kernel.py);
-    numerics agree with the XLA path to float32 accumulation-order
-    tolerance (~1e-3 relative after 10 ReLU-thresholded sweeps; the
-    early-stopping kernel additionally differs up to the stopping
-    tolerance on multi-tile batches, PARITY.md #8).
+    backend="pallas" (or "pallas_interpret") runs the Gauss-Seidel
+    sweeps and the BCD dictionary update as GPU kernels
+    (ops/pallas/coder_kernel.py); with early stopping, one launch per
+    sweep inside the same global stopping rule. Numerics agree with the
+    XLA path to float32 summation-order tolerance (~1e-3 relative after
+    10 ReLU-thresholded sweeps).
 
     psum_axis: when running inside shard_map with the batch columns
     sharded over that mesh axis, the sufficient statistics are psum'd so
@@ -247,42 +245,31 @@ def _step_inner(
         raise ValueError(
             f"coder must be 'bcd', 'fista' or 'fista_bf16', got {coder!r}")
     W, A, B, C = st.W, st.A, st.B, st.C
-    use_pallas = backend == "pallas"
+    use_kernels = backend != "xla"
+    interpret = backend == "pallas_interpret"
     # jax.named_scope: phases show up as annotated regions in
     # jax.profiler traces (SURVEY.md §5 tracing plan)
     with jax.named_scope("onmf.sparse_code"):
         gram = W.T @ W
         proj = W.T @ Xb
-        if coder in ("fista", "fista_bf16") and use_pallas:
-            from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import fista_sweeps
-
-            H = fista_sweeps(gram, proj, H0, jnp.asarray(alpha, W.dtype),
-                             stopping_diff, sub_iter=int(sub_iter),
-                             use_stopping=use_stopping,
-                             bf16_matmul=coder == "fista_bf16")
-        elif coder in ("fista", "fista_bf16"):
+        alpha_ = jnp.asarray(alpha, W.dtype)
+        if coder in ("fista", "fista_bf16"):
             from onmf_ontf_ndl_tpu.ops.coder import _fista_impl
 
-            H = _fista_impl(gram, proj, H0, jnp.asarray(alpha, W.dtype),
-                            stopping_diff, int(sub_iter), use_stopping,
+            H = _fista_impl(gram, proj, H0, alpha_, stopping_diff,
+                            int(sub_iter), use_stopping,
                             bf16_matmul=coder == "fista_bf16")
-        elif use_pallas and use_stopping:
-            from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import (
-                coder_sweeps_earlystop)
+        elif use_kernels:
+            from onmf_ontf_ndl_tpu.ops.pallas import coder_sweeps
 
-            H = coder_sweeps_earlystop(
-                gram, proj, H0, jnp.asarray(alpha, W.dtype), stopping_diff,
-                sub_iter=int(sub_iter))
-        elif use_pallas:
-            from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import coder_sweeps
-
-            H = coder_sweeps(gram, proj, H0, jnp.asarray(alpha, W.dtype),
-                             sub_iter=int(sub_iter))
+            H = coder_sweeps(gram, proj, H0, alpha_, sub_iter=int(sub_iter),
+                             stopping_diff=stopping_diff if use_stopping
+                             else None, interpret=interpret)
         else:
             from onmf_ontf_ndl_tpu.ops.coder import _code_impl
 
             H = _code_impl(
-                gram, proj, H0, jnp.asarray(alpha, W.dtype), stopping_diff,
+                gram, proj, H0, alpha_, stopping_diff,
                 jnp.asarray(0.0, W.dtype), int(sub_iter), use_stopping, False,
             )
     with jax.named_scope("onmf.aggregates"):
@@ -299,11 +286,10 @@ def _step_inner(
         C1 = (1.0 - w_t) * C + w_t * xxt if st.tracks_xxt else C
     A_u, B_u = (A, B) if dict_from == "stale" else (A1, B1)
     with jax.named_scope("onmf.dict_update"):
-        if use_pallas:
-            from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import (
-                dict_update_sweep)
+        if use_kernels:
+            from onmf_ontf_ndl_tpu.ops.pallas import dict_update_sweep
 
-            W1 = dict_update_sweep(W, A_u, B_u)
+            W1 = dict_update_sweep(W, A_u, B_u, interpret=interpret)
         else:
             W1 = dict_update_bcd(W, A_u, B_u)
     return dataclasses.replace(st, W=W1, A=A1, B=B1, C=C1, t=t), H
@@ -336,12 +322,11 @@ def train_dict(
 
     ``sampling`` (only with ``subsample=True``): ``"iid"`` (default)
     draws batch columns iid with replacement like the reference
-    (``src/onmf.py:212-214``); ``"block"`` is the opt-in TPU-native
-    sampler — a contiguous wrap-around block of a once-permuted pool at
-    a random per-step offset (uniform marginal, without-replacement per
-    pool pass; PARITY.md deviation #12). Block sampling replaces the
-    random-access HBM gather with a full-bandwidth slice: measured
-    ~87 us/step faster at the headline bench shape (docs/DESIGN.md §2).
+    (``src/onmf.py:212-214``); ``"block"`` is the opt-in block sampler —
+    a contiguous wrap-around block of a once-permuted pool at a random
+    per-step offset (uniform marginal, without-replacement per pool
+    pass; PARITY.md deviation #12). It replaces the random-column gather
+    with a slice that streams at memory bandwidth.
 
     Returns the final state and the (r, n) accumulated code matrix.
     """
@@ -365,7 +350,7 @@ def train_dict(
         jnp.asarray(alpha, X.dtype), jnp.asarray(beta, X.dtype), sd,
         int(iterations), int(batch_size), bool(subsample), int(sub_iter),
         use_stopping, bool(track_code), dict_from,
-        backend=resolve_backend(backend, use_stopping),
+        backend=resolve_backend(backend),
         track_metrics=bool(return_metrics), coder=coder, sampling=sampling,
     )
     if return_metrics:

@@ -12,8 +12,8 @@ Semantics match ``update_code_within_radius`` in the reference
 (``/root/reference/src/onmf.py:233-271``): same sweep order, same step
 size, same nonnegativity projection, same relative-change stopping rule
 (spectral norm, as ``np.linalg.norm(M, 2)`` is the 2-norm for matrices).
-This module is the XLA implementation; the fused single-kernel Pallas
-version lives in ``ops/pallas/coder_kernel.py``.
+This module is the XLA implementation; the GPU kernel that runs the
+sweeps in one launch lives in ``ops/pallas/coder_kernel.py``.
 
 Two execution modes:
 
@@ -34,16 +34,36 @@ from jax import lax
 __all__ = ["nonneg_code", "nonneg_code_gram"]
 
 
+def _lambda_max(G, iters: int):
+    """Top eigenvalue of a small PSD matrix by power iteration.
+
+    Starts from a fixed unstructured positive vector (a structured start
+    such as ``G @ 1`` misses matrices whose rows sum to zero); after
+    ``iters`` normalised steps the Rayleigh quotient is accurate to about
+    ``(lambda2 / lambda1) ** (2 * iters)`` relative, and it only ever
+    under-estimates.
+    """
+    idx = lax.broadcasted_iota(jnp.int32, (G.shape[0], 1), 0)
+    v = 0.5 + ((idx * 40503) % 65536).astype(G.dtype) / 65536.0
+
+    def it(_, v):
+        w = G @ v
+        return w / jnp.maximum(jnp.sqrt(jnp.sum(w * w)), 1e-30)
+
+    v = lax.fori_loop(0, iters, it, v)
+    return jnp.sum(v * (G @ v)) / jnp.maximum(jnp.sum(v * v), 1e-30)
+
+
 @functools.partial(jax.jit, static_argnames=("sub_iter", "use_stopping",
                                               "bf16_matmul"))
 def _fista_impl(A, B, H0, alpha, stopping_diff, sub_iter, use_stopping,
                 bf16_matmul=False):
     """Accelerated projected-gradient (FISTA) nonnegative LASSO coder.
 
-    The TPU-native alternative to the reference's Gauss-Seidel sweeps:
-    each iteration is ONE (r, r) x (r, n) MXU matmul plus full-matrix
-    pointwise ops — no sequential row chain at all, so every vector op
-    runs at full vreg utilization (docs/DESIGN.md §2). Solves the same
+    The data-parallel alternative to the reference's Gauss-Seidel sweeps:
+    each iteration is ONE (r, r) x (r, n) matrix product plus
+    elementwise work that XLA fuses — no sequential row chain at all
+    (docs/DESIGN.md §2). Solves the same
     objective; at equal sweep counts the final objective is typically
     BELOW the reference coder's (measured; tests/test_fista.py).
 
@@ -51,15 +71,10 @@ def _fista_impl(A, B, H0, alpha, stopping_diff, sub_iter, use_stopping,
     safety on the Rayleigh under-estimate), Nesterov momentum in the
     standard t-sequence. Not a reference-parity path — an opt-in mode.
     """
-    # the shared power-iteration helper (plain lax code, also used inside
-    # the Pallas kernels); imported lazily to keep this module free of a
-    # top-level dependency on the kernels module
-    from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import _lambda_max
-
     L = _lambda_max(A, 16) * 1.02 + 1e-12
     inv_L = 1.0 / L
     one_ = jnp.asarray(1.0, A.dtype)
-    # bf16_matmul: the per-iteration cost is ONE MXU matmul — exactly
+    # bf16_matmul: the per-iteration cost is ONE matrix product — exactly
     # the op bf16 halves. Inputs are cast to bf16, accumulation and all
     # pointwise ops (projection, momentum) stay f32; the final iterate
     # precision is bounded by the gradient rounding, asserted at the
@@ -103,8 +118,8 @@ def _spectral_norm(M: jax.Array) -> jax.Array:
 
     Computed as ``sqrt(lambda_max(G))`` of the smaller Gram matrix —
     mathematically identical to ``np.linalg.norm(M, 2)`` (the reference's
-    stopping statistic, ``/root/reference/src/onmf.py:265``) but TPU-shaped:
-    the (r, n) iterate is reduced by one MXU matmul to an (r, r) Gram and
+    stopping statistic, the reference's ``src/onmf.py:265``), but the
+    (r, n) iterate is reduced by one matrix product to an (r, r) Gram and
     the eigensolve runs on that tiny matrix, instead of an SVD of the full
     iterate inside the stopping loop (round-1 VERDICT weak #3).
     """
@@ -216,52 +231,38 @@ def nonneg_code_gram(
       stopping_diff: relative spectral-change early stop; ``None`` disables
         the data-dependent stop and runs exactly ``sub_iter`` sweeps.
       radius: optional spectral trust-region radius around ``H0``.
+      backend: "auto" | "xla" | "pallas" | "pallas_interpret" (see
+        ``ops.pallas.resolve_backend``); selects the kernel for the
+        bcd sweeps. The trust-region (radius) and FISTA coders are XLA
+        only.
       method: "bcd" (reference-parity Gauss-Seidel sweeps) or "fista"
-        (fully parallel accelerated projected gradient — the TPU-native
-        opt-in mode; same objective, no radius support).
+        (fully parallel accelerated projected gradient — an opt-in
+        mode; same objective, no radius support).
 
     Returns:
       (r, n) nonnegative code matrix.
     """
+    from onmf_ontf_ndl_tpu.ops.pallas import resolve_backend
+
     alpha = jnp.asarray(alpha, A.dtype)
     use_stopping = stopping_diff is not None
     use_radius = radius is not None
-    if use_radius and backend == "pallas":
-        raise ValueError(
-            "the trust-region (radius) coder has no fused kernel; use "
-            "backend='xla' or 'auto'")
+    backend = resolve_backend(backend)
     if method in ("fista", "fista_bf16"):
         if use_radius:
             raise ValueError(f"method={method!r} does not support radius")
-        bf16 = method == "fista_bf16"
-        from onmf_ontf_ndl_tpu.ops.pallas import resolve_backend
-
-        if resolve_backend(backend, use_stopping) == "pallas":
-            from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import fista_sweeps
-
-            return fista_sweeps(
-                A, B, H0, alpha,
-                stopping_diff if use_stopping else 0.0,
-                sub_iter=int(sub_iter), use_stopping=use_stopping,
-                bf16_matmul=bf16)
         sd = jnp.asarray(stopping_diff if use_stopping else 0.0, A.dtype)
         return _fista_impl(A, B, H0, alpha, sd, int(sub_iter), use_stopping,
-                           bf16_matmul=bf16)
+                           bf16_matmul=method == "fista_bf16")
     if method != "bcd":
         raise ValueError(
             f"method must be 'bcd', 'fista' or 'fista_bf16', got {method!r}")
-    if not use_radius:
-        # both sweep modes route to the fused Pallas kernels on TPU
-        from onmf_ontf_ndl_tpu.ops.pallas import resolve_backend
+    if backend != "xla" and not use_radius:
+        from onmf_ontf_ndl_tpu.ops.pallas import coder_sweeps
 
-        if resolve_backend(backend, use_stopping) == "pallas":
-            from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import (
-                coder_sweeps, coder_sweeps_earlystop)
-
-            if use_stopping:
-                return coder_sweeps_earlystop(
-                    A, B, H0, alpha, stopping_diff, sub_iter=int(sub_iter))
-            return coder_sweeps(A, B, H0, alpha, sub_iter=int(sub_iter))
+        return coder_sweeps(A, B, H0, alpha, sub_iter=int(sub_iter),
+                            stopping_diff=stopping_diff,
+                            interpret=backend == "pallas_interpret")
     sd = jnp.asarray(stopping_diff if use_stopping else 0.0, A.dtype)
     rad = jnp.asarray(radius if use_radius else 0.0, A.dtype)
     return _code_impl(A, B, H0, alpha, sd, rad, int(sub_iter), use_stopping, use_radius)

@@ -1,25 +1,36 @@
-"""Fused Pallas TPU kernels for the sequential BCD sweeps.
+"""Pallas kernels (Triton route) for the sequential BCD sweeps on a GPU.
 
-The two hot sequential loops of online NMF (SURVEY.md §3.1 hot loops
-#2/#3) are Gauss-Seidel row/column sweeps — hundreds of tiny dependent
-matvecs that, as individual XLA ops, each pay dispatch overhead. These
-kernels run the whole sweep schedule on-chip: operands live in VMEM,
-the inner ``sub_iter x r`` loop is a ``fori_loop`` inside one kernel.
+The two sequential loops of online NMF are Gauss-Seidel sweeps over the
+r variables of a nonnegative least-squares problem: the coder updates the
+r rows of the code H (sub_iter sweeps), the dictionary update the r
+columns of W (one sweep). As XLA loops each variable update is one
+dependent loop iteration over the whole iterate. Here one kernel runs the
+whole sweep schedule, with the iterate held in registers.
 
-- :func:`coder_sweeps` — the nonnegative-LASSO row sweeps of
-  ``update_code_within_radius`` (``/root/reference/src/onmf.py:252-263``)
-  with a fixed sweep count (the jit/scan fast path; the early-stopping
-  variant lives in ``ops/coder.py``). Numerically identical to
-  ``nonneg_code_gram(..., stopping_diff=None)``.
-- :func:`dict_update_sweep` — the column-BCD dictionary update
-  (``/root/reference/src/onmf.py:110-114``), run on W^T so the sequential
-  axis is the sublane dimension. Requires symmetric A (true for the
-  aggregate A = agg H H^T). Numerically identical to
-  ``dict_update_bcd``.
+Both kernels share one body, :func:`_sweep_kernel`. It works on an
+``(N, R)`` matrix ``X`` whose column ``k`` is variable ``k`` and whose
+rows are independent instances (code columns, or dictionary rows):
 
-Both kernels tile the independent (column) axis across the grid and pad
-the rank axis to the float32 sublane multiple; padded rows carry zero A/B
-and cannot influence real rows (their A columns are zero).
+    X[:, k] <- max(X[:, k] - step_k * (X @ G[k, :] - Bt[:, k] + alpha), 0)
+
+for ``k = 0 .. r-1`` in order, with ``step_k = rs / (G[k, k] + 1)``. The
+coder runs it on ``X = H^T`` with ``G = A``, ``Bt = B^T`` and
+``rs = rsqrt(i + 10)`` at sweep ``i``; the dictionary update on ``X = W``
+with ``G = A^T``, ``Bt = B^T``, ``rs = 1`` and a unit-ball projection of
+each updated column.
+
+Each program owns a ``(TN, R)`` tile of instances for all sweeps. One
+variable update is one multiply of the tile by a length-R row plus one
+reduction along R, fused as
+
+    new_k = max(sum_j X[:, j] * (e_k - step_k G[k, j]) + step_k (Bt[:, k] - alpha), 0)
+
+so the only cross-thread traffic per update is one warp reduction. ``R``
+is the rank rounded up to a power of two; padded variables carry zero
+Gram rows and columns, padded instances zero data, so neither changes a
+real entry. The kernels read ``G``, ``Bt`` and ``X0`` once and write
+``X`` once; an XLA loop moves the whole iterate on each of its
+``sub_iter * r`` dependent iterations.
 """
 
 from __future__ import annotations
@@ -28,659 +39,225 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["coder_sweeps", "coder_sweeps_earlystop", "dict_update_sweep",
-           "fista_sweeps"]
+__all__ = ["coder_kernel_fits", "coder_sweeps", "dict_kernel_fits",
+           "dict_update_sweep"]
+
+# Elements of X one coder program holds, and its warps: 32 f32 registers
+# a thread for the tile of X and as many for the tile of Bt. On an H100
+# SXM (700 W) 10 sweeps at r=25, n=32768 took 0.77 ms at (64 x 32, 2
+# warps) against 0.74-1.13 ms for tiles of 32-256 instances and 1-4
+# warps, and 5.48 ms as XLA's loop.
+_TILE_ELEMS = 2048
+_CODER_WARPS = 2
+# Largest padded (D, R) the one-program dictionary kernel takes. On the
+# same card it beat XLA's column loop at (d, r) = (300, 25), 512 x 32
+# padded (0.28 against 0.79 ms), and lost at (400, 100), 512 x 128
+# (1.17 against 1.11 ms).
+_DICT_MAX_ELEMS = 16384
+# Widest rank the coder keeps in registers (16-row tiles at R = 128).
+_CODER_MAX_RANK = 128
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+def _pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
 
 
-def _pick_tile(n: int, block_n: int | None, max_tn: int) -> int:
-    """Column-tile width: the widest VMEM-safe tile, BALANCED over the
-    grid cells n actually needs (n=16384 with max_tn=13056 gets two 8192
-    tiles, not 13056 + a half-padding tile). An explicit block_n still
-    wins (clamped to the VMEM limit)."""
-    if block_n:
-        return min(block_n, max_tn, _round_up(n, 128))
-    cells = -(-n // max_tn)
-    return min(max_tn, _round_up(-(-n // cells), 128))
+def _rank_pad(r: int) -> int:
+    return max(8, _pow2(r))
 
 
-def _blocked_sweep(A_ref, B_ref, H_ref, acorr_ref, diag_ref, alpha, rs, *,
-                   r, bk, nonneg_norm):
-    """One Gauss-Seidel sweep over the r rows, in row blocks of ``bk``.
+def _dict_rows(d: int) -> int:
+    return max(16, _pow2(d))
 
-    Exact-semantics latency optimization: the per-row gradient
-    ``A[k, :] @ H`` (with rows < k already updated) is regrouped as
 
-        A[k, :] @ H_pre_block  +  sum_{j in block, j < k} A[k, j] * delta_j
+def coder_kernel_fits(r: int) -> bool:
+    """Whether the coder kernel takes rank ``r``. Wider ranks would hold
+    tiles of fewer than 16 instances per program; they run the XLA
+    sweeps (``ops/coder.py::_code_impl``), which compute the same
+    thing."""
+    return r <= _CODER_MAX_RANK
 
-    — one (bk, R) x (R, TN) MXU matmul per BLOCK plus cheap in-block
-    scalar-vector corrections, instead of ``bk`` serially dependent
-    matvecs. Identical in real arithmetic to the row-at-a-time sweep
-    (only the f32 summation grouping differs); the sequential dependence
-    chain shrinks from r MXU matvecs to r/bk matmuls + O(bk^2) VPU fmas.
 
-    acorr_ref: SMEM (R, bk) staging of the in-block correction scalars,
-    ``acorr[k, j] = A[k, (k//bk)*bk + j]`` (SMEM because Mosaic has no
-    scalar VMEM loads). The loop is fully Python-unrolled so every
-    scalar index is static.
+def dict_kernel_fits(d: int, r: int) -> bool:
+    """Whether the dictionary kernel takes a (d, r) dictionary: one
+    program holds all of it, padded to powers of two, and the unit-ball
+    projection needs whole columns. Larger ones run
+    ``ops/dict_update.py::dict_update_bcd``."""
+    return _dict_rows(d) * _rank_pad(r) <= _DICT_MAX_ELEMS
+
+
+def _sweep_kernel(p_ref, g_ref, b_ref, x0_ref, x_ref, *, r, sweeps,
+                  normalize):
+    """``sweeps`` Gauss-Seidel sweeps on one (TN, R) tile of X.
+
+    p_ref: (2,) ``[alpha, index of the first sweep]``. normalize=False is
+    the coder (step ``rsqrt(i + 10) / (G[k, k] + 1)``); True is the
+    dictionary update (step ``1 / (G[k, k] + 1)``, then each new column
+    is divided by ``max(1, its norm)``, which needs the whole column in
+    this one tile).
     """
-    nblk = -(-r // bk)
-    for b in range(nblk):
-        k0 = b * bk
-        kb = min(bk, r - k0)
-        G = jax.lax.dot_general(
-            A_ref[pl.ds(k0, kb), :], H_ref[...], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )                                             # (kb, TN), pre-block H
-        deltas = []
-        for idx in range(kb):
-            k = k0 + idx
-            g = G[idx:idx + 1, :] - B_ref[pl.ds(k, 1), :] + alpha
-            for j in range(idx):
-                g = g + acorr_ref[k, j] * deltas[j]
-            if nonneg_norm:
-                step = 1.0 / (diag_ref[0, k] + 1.0)
-            else:
-                step = rs / (diag_ref[0, k] + 1.0)
-            old = H_ref[pl.ds(k, 1), :]
-            new_row = jnp.maximum(old - step * g, 0.0)
-            if nonneg_norm:
-                nrm = jnp.sqrt(jnp.sum(new_row * new_row))
-                new_row = new_row / jnp.maximum(1.0, nrm)
-            if idx + 1 < kb:                          # last delta is unused
-                deltas.append(new_row - old)
-            H_ref[pl.ds(k, 1), :] = new_row
+    tn, R = x_ref.shape
+    alpha = p_ref[0]
+    first = p_ref[1]
+    b = b_ref[...]
+    cols = lax.broadcasted_iota(jnp.int32, (tn, R), 1)
+    var = lax.broadcasted_iota(jnp.int32, (R,), 0)
 
-
-def _block_corr(Ap: jax.Array, bk: int) -> jax.Array:
-    """(R, bk) staging of the in-block correction scalars for
-    :func:`_blocked_sweep`: ``out[k, j] = Ap[k, (k//bk)*bk + j]``
-    (clamped; out-of-range slots are never read)."""
-    R = Ap.shape[0]
-    idx = (jnp.arange(R) // bk)[:, None] * bk + jnp.arange(bk)[None, :]
-    return jnp.take_along_axis(Ap, jnp.minimum(idx, R - 1), axis=1)
-
-
-def _coder_kernel(alpha_ref, inv_diag_ref, acorr_ref, A_ref, B_ref, H0_ref,
-                  H_ref, *, r, sub_iter, bk, nonneg_norm):
-    """One grid cell: full sweep schedule on an (R, TN) tile of H.
-
-    inv_diag_ref: SMEM (1, R) array of the diagonal A[k,k] — SMEM because
-    VMEM scalar loads at dynamic lane offsets are not supported by Mosaic.
-    The step divides in-kernel (not reciprocal-multiply) to match the XLA
-    path's rounding.
-
-    nonneg_norm=False: coder semantics (relu row, step rsqrt(i+10)/(Akk+1)).
-    nonneg_norm=True: dictionary semantics (relu + unit-ball column norm,
-    step 1/(Akk+1), single sweep expected).
-    """
-    H_ref[...] = H0_ref[...]
-    alpha = alpha_ref[0, 0]
-
-    def sweep(i, _):
-        rs = jax.lax.rsqrt(i.astype(jnp.float32) + 10.0)
-        _blocked_sweep(A_ref, B_ref, H_ref, acorr_ref, inv_diag_ref,
-                       alpha, rs, r=r, bk=bk, nonneg_norm=nonneg_norm)
-        return 0
-
-    jax.lax.fori_loop(0, sub_iter, sweep, 0)
-
-
-
-def _tile_plan(A, B, H0, n_bufs: int, block_n: int | None):
-    """Shared pad/tile planning for the (Gram, B, H0) -> H coder kernels.
-
-    ``n_bufs`` = number of (R, TN) f32 VMEM buffers the kernel holds
-    (inputs + output + scratch); the column tile is clamped so they stay
-    within an ~8 MB VMEM budget, balanced over the grid cells
-    (:func:`_pick_tile`). Returns ``None`` when the rank alone blows the
-    budget — callers take their XLA fallback (identical math).
-    """
-    r, n = B.shape
-    R = _round_up(r, 8)
-    if R * R * 4 > 6 * 1024 * 1024:
-        return None
-    vmem_budget = 8 * 1024 * 1024
-    max_tn = max(512, (vmem_budget // (4 * n_bufs * R)) // 128 * 128)
-    TN = _pick_tile(n, block_n, max_tn)
-    N = _round_up(n, TN)
-    f32 = jnp.float32
-    Ap = jnp.zeros((R, R), f32).at[:r, :r].set(A.astype(f32))
-    Bp = jnp.zeros((R, N), f32).at[:r, :n].set(B.astype(f32))
-    Hp = jnp.zeros((R, N), f32).at[:r, :n].set(H0.astype(f32))
-    return r, n, R, TN, N, Ap, Bp, Hp
-
-
-def _launch(kernel, smem_inputs, Ap, Bp, Hp, R, TN, N, scratch_shapes,
-            interpret):
-    """Shared pallas_call launch: SMEM scalar/staging inputs first, then
-    the (R, R) Gram replicated per cell and the column-tiled B/H0;
-    output is the column-tiled (R, N) iterate."""
-    f32 = jnp.float32
-    smem_specs = [
-        pl.BlockSpec(arr.shape, lambda i: (0, 0), memory_space=pltpu.SMEM)
-        for arr in smem_inputs
-    ]
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((R, N), f32),
-        grid=(N // TN,),
-        in_specs=smem_specs + [
-            pl.BlockSpec((R, R), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, TN), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, TN), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((R, TN), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=scratch_shapes,
-        interpret=interpret,
-    )(*smem_inputs, Ap, Bp, Hp)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("sub_iter", "block_n", "block_rows", "interpret"))
-def coder_sweeps(A: jax.Array, B: jax.Array, H0: jax.Array,
-                 alpha=0.0, *, sub_iter: int = 10,
-                 block_n: int | None = None, block_rows: int = 2,
-                 interpret: bool = False) -> jax.Array:
-    # block_n=None -> widest tile the VMEM clamp allows: the kernel's
-    # cost is dominated by the sub_iter x r sequential loop, so wider
-    # tiles (fewer grid cells = fewer total sequential iterations) win
-    # as long as the 4 (R, TN) f32 buffers fit VMEM. Measured on v5e in
-    # the fused trainer: 512 -> 9.7M, 4096 -> 17.3M patches/s.
-    """Fused nonnegative sparse-coding sweeps from Gram form.
-
-    Args:
-      A: (r, r) = W^T W.   B: (r, n) = W^T X.   H0: (r, n) start iterate.
-    Returns (r, n) code after exactly ``sub_iter`` Gauss-Seidel sweeps.
-    """
-    plan = _tile_plan(A, B, H0, n_bufs=4, block_n=block_n)
-    if plan is None:
-        # extreme ranks: the (R, R) Gram alone would blow VMEM — fall
-        # back to the XLA sweeps (identical math)
-        from onmf_ontf_ndl_tpu.ops.coder import _code_impl
-
-        z = jnp.asarray(0.0, B.dtype)
-        return _code_impl(A, B, H0, jnp.asarray(alpha, B.dtype), z, z,
-                          int(sub_iter), False, False)
-    r, n, R, TN, N, Ap, Bp, Hp = plan
-    f32 = jnp.float32
-    alpha_arr = jnp.full((1, 1), alpha, f32)
-    inv_diag = jnp.zeros((1, R), f32).at[0, :r].set(jnp.diag(A).astype(f32))
-    bk = max(1, min(int(block_rows), r))
-    acorr = _block_corr(Ap, bk)
-
-    out = _launch(
-        functools.partial(_coder_kernel, r=r, sub_iter=sub_iter, bk=bk,
-                          nonneg_norm=False),
-        [alpha_arr, inv_diag, acorr], Ap, Bp, Hp, R, TN, N, [], interpret)
-    return out[:r, :n].astype(B.dtype)
-
-
-def _fixed_start(r: int):
-    """Fixed unstructured positive start vector for the power iterations
-    (a structured start like ``G @ 1`` has a blind spot: deltas whose
-    per-column rank sums cancel read as a spuriously tiny norm)."""
-    idx = jax.lax.broadcasted_iota(jnp.int32, (r, 1), 0)
-    return 0.5 + ((idx * 40503) % 65536).astype(jnp.float32) / 65536.0
-
-
-def _lambda_max(G, iters: int):
-    """Top eigenvalue of a small PSD matrix by power iteration.
-
-    In-kernel replacement for the reference's ``np.linalg.norm(M, 2)``
-    stopping statistic: ``sigma_max(M)^2 = lambda_max(M M^T)``. From a
-    cold (fixed) start the Rayleigh quotient after ``iters`` normalized
-    power steps is accurate to ~(lambda2/lambda1)^(2*iters) relative;
-    that bound sizes a COLD call's ``iters``. The early-stopping kernels
-    instead call :func:`_lambda_max_warm` every sweep with the previous
-    sweep's eigenvector (default ``pi_iters=12``) — see its docstring
-    for the warm-start accuracy argument. The fixed start is orthogonal
-    to the top eigenvector only on a measure-zero set, and the Rayleigh
-    quotient only ever under-estimates, never inflates.
-    """
-    return _lambda_max_warm(G, _fixed_start(G.shape[0]), iters)[0]
-
-
-def _lambda_max_warm(G, v, iters: int):
-    """Power-iteration Rayleigh quotient from a caller-supplied start
-    vector; returns ``(lambda, v_final)`` so the eigenvector estimate can
-    be carried across calls (the early-stopping kernels re-evaluate the
-    stopping statistic every sweep on slowly-changing iterates — warm
-    starts cut the per-sweep sequential matvec chain several-fold).
-
-    Warm-start accuracy argument (sizes the default ``pi_iters=12``,
-    halved from the cold-start 24): the Grams change by one Gauss-Seidel
-    sweep between evaluations, so the carried eigenvector starts with
-    top-component overlap near 1 and the effective error is
-    ~tan(theta_0)^2 * (lambda2/lambda1)^(2*12) with tan(theta_0) << 1,
-    i.e. tighter than a cold 24-iteration call except immediately after
-    an abrupt iterate rotation — which the 0.05 fixed-start mix at the
-    call sites guards (restores a floor-level overlap with the top
-    eigenvector). Measured on the bench shapes the warm 12-iter statistic
-    agrees with a cold 64-iter one to <1e-3 relative, well inside the
-    0.01 stopping threshold it feeds; per-tile stopping decisions vs the
-    XLA global rule shift only at tolerance level (PARITY.md deviation
-    #8, ~2e-4 iterate agreement asserted in tests)."""
-    def it(_, v):
-        w = jax.lax.dot_general(G, v, (((1,), (0,)), ((), ())),
-                                preferred_element_type=jnp.float32)
-        nrm = jnp.sqrt(jnp.sum(w * w))
-        return w / jnp.maximum(nrm, 1e-30)
-
-    v = jax.lax.fori_loop(0, iters, it, v)
-    Gv = jax.lax.dot_general(G, v, (((1,), (0,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-    lam = jnp.sum(v * Gv) / jnp.maximum(jnp.sum(v * v), 1e-30)
-    return lam, v
-
-
-def _lambda_max_warm_pair(gw_ref, vb_ref, Gd, Gh, vd, vh, iters: int):
-    """Two warm power iterations fused into ONE matmul chain: the
-    stopping rule needs lambda_max of BOTH the delta Gram and the
-    iterate Gram every sweep, and running the two (R, R) x (R, 1)
-    chains separately doubles the sequential-latency depth that
-    dominates the early-stopping kernels (measured ~65 us per power
-    iteration per sweep at the bench shape). Per iteration, ONE
-    ``[Gd | Gh] (R, 2R) @ V (2R, 2)`` matmul advances both: V's column
-    0 holds vd in its top block, column 1 holds vh in its bottom block
-    (zeros elsewhere), so output column c is exactly ``G_c @ v_c``.
-    Each column is normalized separately; per-chain math is identical
-    to :func:`_lambda_max_warm`.
-
-    ``gw_ref`` (R, 2R) and ``vb_ref`` (2R, >=2) are VMEM scratch — the
-    block vectors are staged through refs because Mosaic cannot lower
-    sublane-axis concatenates of mismatched-offset vectors.
-
-    Returns ``(lam_d, lam_h, vd_final, vh_final)``."""
-    R = Gd.shape[0]
-    gw_ref[:, :R] = Gd
-    gw_ref[:, R:] = Gh
-    vb_ref[...] = jnp.zeros(vb_ref.shape, jnp.float32)
-    vb_ref[:R, 0:1] = vd
-    vb_ref[R:, 1:2] = vh
-    Gw = gw_ref[...]
-
-    def it(_, carry):
-        V = vb_ref[:, 0:2]                              # (2R, 2)
-        W = jax.lax.dot_general(Gw, V, (((1,), (0,)), ((), ())),
-                                preferred_element_type=jnp.float32)
-        nrm = jnp.sqrt(jnp.sum(W * W, axis=0, keepdims=True))
-        W = W / jnp.maximum(nrm, 1e-30)
-        vb_ref[:R, 0:1] = W[:, 0:1]
-        vb_ref[R:, 1:2] = W[:, 1:2]
-        return carry
-
-    jax.lax.fori_loop(0, iters, it, 0)
-    V = vb_ref[:, 0:2]
-    GV = jax.lax.dot_general(Gw, V, (((1,), (0,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-    vd_f = vb_ref[:R, 0:1]
-    vh_f = vb_ref[R:, 1:2]
-    lam_d = (jnp.sum(vd_f * GV[:, 0:1])
-             / jnp.maximum(jnp.sum(vd_f * vd_f), 1e-30))
-    lam_h = (jnp.sum(vh_f * GV[:, 1:2])
-             / jnp.maximum(jnp.sum(vh_f * vh_f), 1e-30))
-    return lam_d, lam_h, vd_f, vh_f
-
-
-def _psd_lambda_ub(G):
-    """Certified upper bound on ``lambda_max`` of a PSD matrix: the
-    tighter of the trace and the Gershgorin max absolute row sum. Both
-    are exact inequalities, and for the Perron-dominant Grams this
-    kernel sees (nonneg iterates -> one dominant near-flat eigenvector)
-    the Gershgorin bound is near-tight (row sums ~ lambda_1 when
-    G ~ lambda_1 v v^T with flat v)."""
-    R = G.shape[0]
-    ri = jax.lax.broadcasted_iota(jnp.int32, (R, R), 0)
-    ci = jax.lax.broadcasted_iota(jnp.int32, (R, R), 1)
-    tr = jnp.sum(jnp.where(ri == ci, G, 0.0))
-    rowsum = jnp.max(jnp.sum(jnp.abs(G), axis=1))
-    return jnp.minimum(tr, rowsum)
-
-
-def _stopping_update(gw_ref, vb_ref, vs_ref, conv_ref, Gd, Gh, v0, stop2,
-                     pi_iters):
-    """Per-sweep relative-spectral-change stopping decision, certified
-    bounds first.
-
-    The stopping rule compares ``lambda_max(Gd)`` against
-    ``stop^2 * lambda_max(Gh)``. Running the warm pair power iteration
-    (:func:`_lambda_max_warm_pair`) every sweep costs ``pi_iters``
-    sequential matvecs — the dominant sequential depth of the
-    early-stopping kernels once the Gauss-Seidel sweep itself is
-    blocked. Most sweeps don't need that accuracy: one warm power step
-    yields Rayleigh quotients that are EXACT lower bounds of both
-    eigenvalues, and :func:`_psd_lambda_ub` gives exact upper bounds,
-    so
-
-    - ``ub_d <= stop^2 * lb_h``  certifies converged, and
-    - ``lb_d >  stop^2 * ub_h``  certifies not converged,
-
-    each matching the true spectral rule (and hence the XLA exact-eigh
-    path's decision) with certainty. Only in the inconclusive band —
-    typically the one sweep where the trajectory crosses the threshold —
-    does the full ``pi_iters`` warm pair iteration run, exactly as
-    before. Decisions are therefore a superset-exactness improvement
-    over the always-PI scheme (PARITY.md deviation #8 unchanged).
-    """
-    # one warm power step: advances the carried eigenvector estimates
-    # AND returns Rayleigh-quotient lower bounds for both Grams
-    lb_d, lb_h, vd, vh = _lambda_max_warm_pair(
-        gw_ref, vb_ref, Gd, Gh, vs_ref[:, 0:1] + 0.05 * v0,
-        vs_ref[:, 1:2] + 0.05 * v0, 1)
-    vs_ref[:, 0:1] = vd
-    vs_ref[:, 1:2] = vh
-    ub_d = _psd_lambda_ub(Gd)
-    ub_h = _psd_lambda_ub(Gh)
-    conv_certain = ub_d <= stop2 * lb_h
-    notconv_certain = lb_d > stop2 * ub_h
-    conv_ref[0] = conv_certain.astype(jnp.int32)
-
-    @pl.when(jnp.logical_not(jnp.logical_or(conv_certain, notconv_certain)))
-    def _():
-        num, den, vd2, vh2 = _lambda_max_warm_pair(
-            gw_ref, vb_ref, Gd, Gh, vs_ref[:, 0:1], vs_ref[:, 1:2],
-            pi_iters)
-        vs_ref[:, 0:1] = vd2
-        vs_ref[:, 1:2] = vh2
-        conv_ref[0] = (num <= stop2 * den).astype(jnp.int32)
-
-
-def _coder_es_kernel(stop_ref, alpha_ref, diag_ref, acorr_ref, A_ref, B_ref,
-                     H0_ref, H_ref, Hold_ref, vs_ref, conv_ref, gw_ref,
-                     vb_ref, *, r, sub_iter, bk, pi_iters):
-    """Early-stopping sweeps on one (R, TN) tile of H.
-
-    Reference semantics (``/root/reference/src/onmf.py:252-268``): run
-    Gauss-Seidel sweeps until the relative spectral-norm change
-    ``|H1 - H0|_2 / |H0|_2`` drops to ``stopping_diff`` or ``sub_iter``
-    sweeps elapse. Static-shaped form (SURVEY §7 hard-part a): always
-    ``sub_iter`` loop iterations, with the whole sweep body predicated on
-    a not-yet-converged flag — a frozen tile costs one scalar test per
-    remaining sweep. The convergence test is evaluated per column tile
-    (the XLA path tests the full batch at once); the deviation is
-    documented in PARITY.md.
-    """
-    H_ref[...] = H0_ref[...]
-    conv_ref[0] = 0
-    alpha = alpha_ref[0, 0]
-    stop2 = stop_ref[0, 0] * stop_ref[0, 0]
-    # warm-started power-iteration vectors (columns 0/1: delta / iterate
-    # Grams) — the spectra drift slowly between sweeps, so carrying the
-    # eigenvector estimates lets each sweep run few iterations
-    v0 = _fixed_start(H_ref.shape[0])
-    vs_ref[:, 0:1] = v0
-    vs_ref[:, 1:2] = v0
-
-    def sweep(i, _):
-        @pl.when(conv_ref[0] == 0)
-        def _():
-            Hold_ref[...] = H_ref[...]
-            rs = jax.lax.rsqrt(i.astype(jnp.float32) + 10.0)
-            _blocked_sweep(A_ref, B_ref, H_ref, acorr_ref, diag_ref,
-                           alpha, rs, r=r, bk=bk, nonneg_norm=False)
-            delta = H_ref[...] - Hold_ref[...]
-            Gd = jax.lax.dot_general(
-                delta, delta, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            Gh = jax.lax.dot_general(
-                Hold_ref[...], Hold_ref[...], (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            # sigma(delta)^2 <= stop^2 * sigma(Hold)^2  <=>  rel <= stop;
-            # certified-bounds fast path, warm pair PI in the band (the
-            # 0.05 fixed-start mix guards abrupt iterate rotations that
-            # could leave the carried eigenvector near-orthogonal)
-            _stopping_update(gw_ref, vb_ref, vs_ref, conv_ref, Gd, Gh,
-                             v0, stop2, pi_iters)
-
-        return 0
-
-    jax.lax.fori_loop(0, sub_iter, sweep, 0)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("sub_iter", "block_n", "block_rows",
-                              "pi_iters", "interpret"))
-def coder_sweeps_earlystop(A: jax.Array, B: jax.Array, H0: jax.Array,
-                           alpha=0.0, stopping_diff=0.01, *,
-                           sub_iter: int = 10, block_n: int | None = None,
-                           block_rows: int = 2, pi_iters: int = 12,
-                           interpret: bool = False) -> jax.Array:
-    """Fused early-stopping nonnegative sparse coding from Gram form.
-
-    The reference-semantics (default) coder path as one TPU kernel: up to
-    ``sub_iter`` Gauss-Seidel sweeps per column tile with the relative
-    spectral-change stopping rule evaluated on-chip (power iteration on
-    the (r, r) Grams of the sweep delta and iterate — no SVD, no host
-    round trips, no dynamic shapes). Converged tiles freeze and skip all
-    remaining sweep work.
-
-    Args/returns as :func:`coder_sweeps`, plus ``stopping_diff``.
-    """
-    # 5 (R, TN) f32 buffers: B, H0, H (out), Hold scratch + margin
-    plan = _tile_plan(A, B, H0, n_bufs=5, block_n=block_n)
-    if plan is None:
-        from onmf_ontf_ndl_tpu.ops.coder import _code_impl
-
-        return _code_impl(A, B, H0, jnp.asarray(alpha, B.dtype),
-                          jnp.asarray(stopping_diff, B.dtype),
-                          jnp.asarray(0.0, B.dtype), int(sub_iter),
-                          True, False)
-    r, n, R, TN, N, Ap, Bp, Hp = plan
-    f32 = jnp.float32
-    stop_arr = jnp.full((1, 1), stopping_diff, f32)
-    alpha_arr = jnp.full((1, 1), alpha, f32)
-    diag = jnp.zeros((1, R), f32).at[0, :r].set(jnp.diag(A).astype(f32))
-    bk = max(1, min(int(block_rows), r))
-    acorr = _block_corr(Ap, bk)
-
-    out = _launch(
-        functools.partial(_coder_es_kernel, r=r, sub_iter=sub_iter, bk=bk,
-                          pi_iters=pi_iters),
-        [stop_arr, alpha_arr, diag, acorr], Ap, Bp, Hp, R, TN, N,
-        [
-            pltpu.VMEM((R, TN), f32),
-            pltpu.VMEM((R, 128), f32),
-            pltpu.SMEM((1,), jnp.int32),
-            pltpu.VMEM((R, 2 * R), f32),     # [Gd | Gh] staging
-            pltpu.VMEM((2 * R, 128), f32),   # block power-iter vectors
-        ], interpret)
-    return out[:r, :n].astype(B.dtype)
-
-
-def _fista_kernel(stop_ref, alpha_ref, invL_ref, A_ref, B_ref, H0_ref,
-                  H_ref, Y_ref, vs_ref, tmom_ref, conv_ref, gw_ref, vb_ref,
-                  *, sub_iter, use_stopping, pi_iters, bf16_matmul=False):
-    """Fused FISTA sweeps on one (R, TN) tile (the ``coder="fista"``
-    mode of ``models/onmf.py``; semantics of ``ops/coder.py::_fista_impl``).
-
-    Unlike the Gauss-Seidel kernels there is no sequential row chain:
-    each iteration is one (R, R) x (R, TN) MXU matmul plus full-tile
-    pointwise ops at full vreg utilization. The kernel exists because the
-    XLA lowering round-trips the (R, TN) iterate through HBM between
-    every op (~200 MB of traffic for 10 sweeps at the bench shape);
-    in-kernel the iterates stay in VMEM.
-
-    use_stopping: per-tile relative spectral-change stop (power iteration
-    on the delta/iterate Grams), same per-tile freeze discipline as
-    :func:`coder_sweeps_earlystop`.
-    """
-    H_ref[...] = H0_ref[...]
-    Y_ref[...] = H0_ref[...]
-    tmom_ref[0] = 1.0
-    conv_ref[0] = 0
-    alpha = alpha_ref[0, 0]
-    stop2 = stop_ref[0, 0] * stop_ref[0, 0]
-    A = A_ref[...]
-    # 1/L (Lipschitz step) is computed ONCE outside the kernel and
-    # staged through SMEM — A is identical for every grid cell, so the
-    # sequential power-iteration chain must not repeat per cell
-    inv_L = invL_ref[0, 0]
-    if bf16_matmul:
-        # bf16 inputs, f32 accumulation: the per-iteration cost is this
-        # one MXU matmul, and bf16 halves its pass count; every
-        # pointwise op and the stored iterates stay f32 (opt-in
-        # production mode, coder="fista_bf16")
-        A = A.astype(jnp.bfloat16)
-    if use_stopping:
-        v0 = _fixed_start(H_ref.shape[0])
-        vs_ref[:, 0:1] = v0
-        vs_ref[:, 1:2] = v0
-
-    def sweep(i, _):
-        def body():
-            tt = tmom_ref[0]
-            H = H_ref[...]
-            Y = Y_ref[...]
-            G = jax.lax.dot_general(
-                A, Y.astype(jnp.bfloat16) if bf16_matmul else Y,
-                (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ) - B_ref[...] + alpha
-            Hn = jnp.maximum(Y - inv_L * G, 0.0)
-            tn = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * tt * tt))
-            Y_ref[...] = Hn + ((tt - 1.0) / tn) * (Hn - H)
-            H_ref[...] = Hn
-            tmom_ref[0] = tn
-            if use_stopping:
-                delta = Hn - H
-                Gd = jax.lax.dot_general(
-                    delta, delta, (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32)
-                Gh = jax.lax.dot_general(
-                    H, H, (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32)
-                _stopping_update(gw_ref, vb_ref, vs_ref, conv_ref, Gd, Gh,
-                                 v0, stop2, pi_iters)
-
-        if use_stopping:
-            pl.when(conv_ref[0] == 0)(body)
+    def sweep(s, x):
+        if normalize:
+            rs = jnp.float32(1.0)
         else:
-            body()
-        return 0
+            rs = lax.rsqrt(first + s.astype(jnp.float32) + 10.0)
 
-    jax.lax.fori_loop(0, sub_iter, sweep, 0)
+        def update(k, x):
+            g = g_ref[k, :]
+            step = rs / (g_ref[k, k] + 1.0)
+            c = jnp.where(var == k, 1.0, 0.0) - step * g
+            sel = jnp.where(cols == k, b - alpha, 0.0)
+            new = jnp.maximum(jnp.sum(x * c[None, :] + step * sel, axis=1),
+                              0.0)
+            if normalize:
+                new = new / jnp.maximum(1.0, jnp.sqrt(jnp.sum(new * new)))
+            return jnp.where(cols == k, new[:, None], x)
+
+        return lax.fori_loop(0, r, update, x)
+
+    x_ref[...] = lax.fori_loop(0, sweeps, sweep, x0_ref[...])
+
+
+def _launch(params, G, Bt, X, *, r, sweeps, normalize, tn, num_warps,
+            interpret):
+    N, R = X.shape
+    tile = pl.BlockSpec((tn, R), lambda i: (i, 0))
+    return pl.pallas_call(
+        functools.partial(_sweep_kernel, r=r, sweeps=sweeps,
+                          normalize=normalize),
+        out_shape=jax.ShapeDtypeStruct((N, R), jnp.float32),
+        grid=(N // tn,),
+        in_specs=[pl.BlockSpec((2,), lambda i: (0,)),
+                  pl.BlockSpec((R, R), lambda i: (0, 0)), tile, tile],
+        out_specs=tile,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="dict_sweep" if normalize else "coder_sweeps",
+    )(params, G, Bt, X)
+
+
+def _pad(M, rows: int, cols: int):
+    M = M.astype(jnp.float32)
+    return jnp.pad(M, ((0, rows - M.shape[0]), (0, cols - M.shape[1])))
+
+
+def coder_tile(r: int, n: int, block_n: int | None = None) -> int:
+    """Instances per coder program: ``_TILE_ELEMS / R`` (a power of two,
+    at least 16), or ``block_n`` when given, never wider than ``n``
+    rounded up to a power of two."""
+    tn = block_n or max(16, _TILE_ELEMS // _rank_pad(r))
+    return min(_pow2(tn), max(16, _pow2(n)))
 
 
 @functools.partial(
     jax.jit, static_argnames=("sub_iter", "use_stopping", "block_n",
-                              "pi_iters", "interpret", "bf16_matmul"))
-def fista_sweeps(A: jax.Array, B: jax.Array, H0: jax.Array,
-                 alpha=0.0, stopping_diff=0.01, *, sub_iter: int = 10,
-                 use_stopping: bool = True, block_n: int | None = None,
-                 pi_iters: int = 12, interpret: bool = False,
-                 bf16_matmul: bool = False) -> jax.Array:
-    """Fused FISTA nonnegative-LASSO coder from Gram form (TPU).
+                              "num_warps", "interpret"))
+def _coder_sweeps(A, B, H0, alpha, stopping_diff, *, sub_iter, use_stopping,
+                  block_n, num_warps, interpret):
+    from onmf_ontf_ndl_tpu.ops.coder import _spectral_norm
 
-    Args/returns as :func:`coder_sweeps`; ``use_stopping=False`` runs
-    exactly ``sub_iter`` accelerated projected-gradient iterations.
-    ``bf16_matmul`` runs the per-iteration MXU matmul with bf16 inputs
-    and f32 accumulation (pointwise ops and iterates stay f32) — the
-    mixed-precision production mode, objective-level quality asserted
-    in tests/test_fista.py.
+    r, n = B.shape
+    R = _rank_pad(r)
+    tn = coder_tile(r, n, block_n)
+    N = -(-n // tn) * tn
+    G = _pad(A, R, R)
+    Bt = _pad(B.T, N, R)
+    X = _pad(H0.T, N, R)
+    alpha = jnp.asarray(alpha, jnp.float32)
+    launch = functools.partial(
+        _launch, G=G, Bt=Bt, r=r, normalize=False, tn=tn,
+        num_warps=num_warps or _CODER_WARPS, interpret=interpret)
+
+    if not use_stopping:
+        X = launch(jnp.stack([alpha, jnp.float32(0.0)]), X=X, sweeps=sub_iter)
+    else:
+        # the reference's global rule: stop once the relative spectral
+        # change of the whole batch over one sweep is <= stopping_diff.
+        # It reduces over every tile, so each sweep is one launch.
+        def cond(c):
+            i, dist, _ = c
+            return jnp.logical_and(i < sub_iter, dist > stopping_diff)
+
+        def body(c):
+            i, _, X = c
+            Xn = launch(jnp.stack([alpha, i.astype(jnp.float32)]), X=X,
+                        sweeps=1)
+            return i + 1, _spectral_norm(Xn - X) / _spectral_norm(X), Xn
+
+        _, _, X = lax.while_loop(
+            cond, body, (jnp.int32(0), jnp.float32(jnp.inf), X))
+    return X[:n, :r].T.astype(B.dtype)
+
+
+def coder_sweeps(A: jax.Array, B: jax.Array, H0: jax.Array, alpha=0.0, *,
+                 sub_iter: int = 10, stopping_diff: float | None = None,
+                 block_n: int | None = None, num_warps: int | None = None,
+                 interpret: bool = False) -> jax.Array:
+    """Nonnegative sparse-coding sweeps from Gram form, as one kernel.
+
+    Args:
+      A: (r, r) = W^T W.   B: (r, n) = W^T X.   H0: (r, n) start iterate.
+      stopping_diff: ``None`` runs exactly ``sub_iter`` sweeps in one
+        launch. A float keeps the reference's global stopping rule: an
+        XLA ``while_loop`` launches one sweep at a time (with that
+        sweep's step) and stops when the relative spectral change of
+        the whole batch is ``<= stopping_diff``.
+      block_n, num_warps: tile width and warps of a program (defaults:
+        :func:`coder_tile` and 2).
+      interpret: run under the Pallas interpreter (tests on the CPU).
+
+    Returns the (r, n) code. Computes what ``ops/coder.py::_code_impl``
+    computes, up to f32 summation order. Ranks that
+    :func:`coder_kernel_fits` refuses run ``_code_impl`` itself.
     """
-    # 5 (R, TN) f32 buffers: B, H0, H (out), Y scratch + margin
-    plan = _tile_plan(A, B, H0, n_bufs=5, block_n=block_n)
-    if plan is None:
-        from onmf_ontf_ndl_tpu.ops.coder import _fista_impl
+    r = B.shape[0]
+    use_stopping = stopping_diff is not None
+    sd = jnp.asarray(stopping_diff if use_stopping else 0.0, B.dtype)
+    if not coder_kernel_fits(r):
+        from onmf_ontf_ndl_tpu.ops.coder import _code_impl
 
-        sd = jnp.asarray(stopping_diff if use_stopping else 0.0, B.dtype)
-        return _fista_impl(A, B, H0, jnp.asarray(alpha, B.dtype), sd,
-                           int(sub_iter), use_stopping,
-                           bf16_matmul=bf16_matmul)
-    r, n, R, TN, N, Ap, Bp, Hp = plan
-    f32 = jnp.float32
-    stop_arr = jnp.full((1, 1), stopping_diff if use_stopping else 0.0, f32)
-    alpha_arr = jnp.full((1, 1), alpha, f32)
-    # Lipschitz estimate (floors at 16 power iterations; the Rayleigh
-    # quotient under-estimates, hence the 1.02 safety factor) — once,
-    # outside the kernel
-    L = _lambda_max(Ap, max(16, pi_iters)) * 1.02 + 1e-12
-    invL_arr = (1.0 / L).reshape(1, 1).astype(f32)
-
-    out = _launch(
-        functools.partial(_fista_kernel, sub_iter=sub_iter,
-                          use_stopping=use_stopping, pi_iters=pi_iters,
-                          bf16_matmul=bf16_matmul),
-        [stop_arr, alpha_arr, invL_arr], Ap, Bp, Hp, R, TN, N,
-        [
-            pltpu.VMEM((R, TN), f32),
-            pltpu.VMEM((R, 128), f32),
-            pltpu.SMEM((1,), jnp.float32),
-            pltpu.SMEM((1,), jnp.int32),
-            pltpu.VMEM((R, 2 * R), f32),     # [Gd | Gh] staging
-            pltpu.VMEM((2 * R, 128), f32),   # block power-iter vectors
-        ], interpret)
-    return out[:r, :n].astype(B.dtype)
+        return _code_impl(A, B, H0, jnp.asarray(alpha, B.dtype), sd,
+                          jnp.asarray(0.0, B.dtype), int(sub_iter),
+                          use_stopping, False)
+    return _coder_sweeps(A, B, H0, alpha, sd, sub_iter=int(sub_iter),
+                         use_stopping=use_stopping, block_n=block_n,
+                         num_warps=num_warps, interpret=interpret)
 
 
-@functools.partial(jax.jit, static_argnames=("block_rows", "interpret"))
-def dict_update_sweep(W: jax.Array, A: jax.Array, B: jax.Array,
-                      *, block_rows: int = 2,
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def dict_update_sweep(W: jax.Array, A: jax.Array, B: jax.Array, *,
                       interpret: bool = False) -> jax.Array:
-    """Fused column-BCD dictionary update (one sweep over all columns).
+    """Column-BCD dictionary update (one sweep over all columns) as one
+    single-program kernel.
 
-    Runs on W^T so the sequential axis is the sublane dim. The kernel
-    reads rows of its Gram operand where the XLA path reads columns
-    A[:, j], so A is transposed on entry (a free (r, r) op): the kernel
-    matches ``dict_update_bcd`` exactly even for a non-aggregate
-    asymmetric A (for the symmetric H H^T aggregate it is a no-op).
-    Args: W (d, r), A (r, r), B (r, d). Returns updated W (d, r).
+    Args: W (d, r), A (r, r), B (r, d). Returns the updated W (d, r).
+    Computes what ``ops/dict_update.py::dict_update_bcd`` computes, for
+    any A (the kernel reads rows of ``A^T``, the columns of A that the
+    XLA path reads), up to f32 summation order. Shapes that
+    :func:`dict_kernel_fits` refuses run ``dict_update_bcd`` itself.
     """
     d, r = W.shape
-    R = _round_up(r, 8)
-    D = _round_up(d, 128)
-    # the kernel holds 3 (R, D) buffers + (R, R) in VMEM; beyond ~10 MB
-    # fall back to the XLA column-BCD (identical math; the unit-ball
-    # projection's full-row norm prevents simple D-tiling). NOTE: the
-    # fallback takes the ORIGINAL A — only the kernel wants it
-    # transposed.
-    if (3 * R * D + R * R) * 4 > 10 * 1024 * 1024:
+    if not dict_kernel_fits(d, r):
         from onmf_ontf_ndl_tpu.ops.dict_update import dict_update_bcd
 
         return dict_update_bcd(W, A, B)
-    A = A.T
-    f32 = jnp.float32
-    Ap = jnp.zeros((R, R), f32).at[:r, :r].set(A.astype(f32))
-    Bp = jnp.zeros((R, D), f32).at[:r, :d].set(B.astype(f32))
-    Wt = jnp.zeros((R, D), f32).at[:r, :d].set(W.T.astype(f32))
-    alpha_arr = jnp.zeros((1, 1), f32)
-    inv_diag = jnp.zeros((1, R), f32).at[0, :r].set(jnp.diag(A).astype(f32))
-    bk = max(1, min(int(block_rows), r))
-    acorr = _block_corr(Ap, bk)
-
-    out = pl.pallas_call(
-        functools.partial(_coder_kernel, r=r, sub_iter=1, bk=bk,
-                          nonneg_norm=True),
-        out_shape=jax.ShapeDtypeStruct((R, D), f32),
-        grid=(1,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, R), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((R, bk), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((R, R), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, D), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, D), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((R, D), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(alpha_arr, inv_diag, acorr, Ap, Bp, Wt)
-    return out[:r, :d].T.astype(W.dtype)
+    R, D = _rank_pad(r), _dict_rows(d)
+    out = _launch(jnp.zeros((2,), jnp.float32), _pad(A.T, R, R),
+                  _pad(B.T, D, R), _pad(W, D, R), r=r, sweeps=1,
+                  normalize=True, tn=D,
+                  num_warps=max(4, D * R // (64 * 32)),
+                  interpret=interpret)
+    return out[:d, :r].astype(W.dtype)

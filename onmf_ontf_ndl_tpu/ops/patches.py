@@ -145,7 +145,7 @@ def extract_patches_grid(img: jax.Array, k: int, stride: int = 1,
                          *, inclusive: bool = False) -> jax.Array:
     """Gather-free regular-grid patch extraction via
     ``conv_general_dilated_patches`` (XLA lowers it as a convolution —
-    far cheaper to compile and run than a big gather on TPU).
+    far cheaper to compile and run than a big gather).
 
     Equivalent to ``extract_patches(img, grid_patch_corners(...), k)``
     (or ``all_patch_corners`` when ``inclusive=True``): returns (d, n)

@@ -104,7 +104,7 @@ def dp_onmf_step(
     use_stopping = stopping_diff is not None
     sd = jnp.asarray(stopping_diff if use_stopping else 0.0, state.W.dtype)
     step = _dp_step_fn(mesh, int(sub_iter), use_stopping, dict_from, axis,
-                       resolve_backend(backend, use_stopping), coder)
+                       resolve_backend(backend), coder)
     return step(state, X, t, H0, sd,
                 jnp.asarray(alpha, state.W.dtype),
                 jnp.asarray(beta, state.W.dtype))
@@ -161,7 +161,7 @@ def dp_train_dict(
     it is evaluated SHARD-LOCALLY (each shard's relative-change test
     sees only its columns), the per-shard analogue of the batched rule.
 
-    ``sampling="block"`` applies the TPU-native pool sampler (PARITY.md
+    ``sampling="block"`` applies the block pool sampler (PARITY.md
     deviation #12) shard-locally: each device permutes and block-slices
     its own shard.
     """
@@ -176,7 +176,7 @@ def dp_train_dict(
     use_stopping = stopping_diff is not None
     train = _dp_train_fn(mesh, int(iterations), int(batch_size_per_device),
                          int(sub_iter), dict_from, axis,
-                         resolve_backend(backend, use_stopping), coder,
+                         resolve_backend(backend), coder,
                          use_stopping, sampling)
     sd = jnp.asarray(stopping_diff if use_stopping else 0.0, X.dtype)
     return train(state, shard_batch(mesh, X, axis),
@@ -257,7 +257,7 @@ def dp_train_image_dict(
                          int(num_patches_per_device), int(inner_iterations),
                          int(batch_size_per_device), int(patch_size),
                          int(sub_iter), dict_from, axis,
-                         resolve_backend(backend, use_stopping), coder,
+                         resolve_backend(backend), coder,
                          use_stopping)
     sd = jnp.asarray(stopping_diff if use_stopping else 0.0, img.dtype)
     return train(state, img, jnp.asarray(alpha, img.dtype),
@@ -329,7 +329,7 @@ def dp_ising_learning(
     ``num_patches_per_device * ndev`` patch sample: the multi-chip form
     of :func:`onmf_ontf_ndl_tpu.apps.ising.ising_trajectory_learning`
     (reference loop ``/root/reference/ising_reconstruction.py:99-179``,
-    which runs ONE lattice; the ensemble is the TPU-native scale-out of
+    which runs ONE lattice; the ensemble is the data-parallel scale-out of
     the trajectory, like the NDL chain ensembles).
 
     ``lattices``: (ndev, L, L) int8 spin configurations, sharded over
@@ -359,7 +359,7 @@ def dp_ising_learning(
         int(num_patches_per_device), int(inner_iterations),
         int(batch_size), int(patch_size), sampler, bool(update_lattice),
         int(sub_iter), bool(use_stopping),
-        resolve_backend(backend, bool(use_stopping)), bool(subsample),
+        resolve_backend(backend), bool(subsample),
         coder, axis)
     dt = state.W.dtype
     lattices = jax.device_put(
@@ -505,7 +505,7 @@ def dp_ndl_train(
         int(batch_size), bool(use_glauber), bool(weighted), int(sub_iter),
         bool(use_stopping), int(num_chains_per_device), bool(subsample),
         bool(discard_first), coder, axis,
-        resolve_backend(backend, use_stopping))
+        resolve_backend(backend))
     return train(state, g, emb0,
                  jnp.asarray(alpha, state.W.dtype),
                  jnp.asarray(beta, state.W.dtype), sd)
@@ -589,7 +589,7 @@ def dp_reconstruct_network_sparse(
 def merge_recon_shards(ii, jj, sums, cnt, n_seg, n: int):
     """Host-side exact merge of per-device grouped painted-pair shards.
 
-    Fetches only each shard's real-segment PREFIX over the host link
+    Copies only each shard's real-segment PREFIX to the host
     (real segments are contiguous from slot 0 because segment ids are a
     cumsum), concatenates, regroups by (i, j), and returns
     ``(pi, pj, mean, count)`` over the distinct global pairs with
@@ -607,7 +607,7 @@ def merge_recon_shards(ii, jj, sums, cnt, n_seg, n: int):
         for d in range(ndev):
             lo, c = d * per, int(counts[d])
             # slice BEFORE np.asarray: only the real-segment prefix may
-            # cross the (slow) host link, never the padded block
+            # be copied to the host, never the padded block
             block = shards[lo].data[:c] if lo in shards \
                 else arr[lo:lo + c]
             out.append(np.asarray(block))

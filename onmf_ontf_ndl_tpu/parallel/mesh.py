@@ -12,10 +12,11 @@ __all__ = ["make_mesh"]
 def make_mesh(axes: dict[str, int] | None = None, devices=None) -> Mesh:
     """Build a mesh over the available devices.
 
-    ``axes`` maps axis names to sizes (row-major over the device list);
-    default is a 1-D ``{"dp": <all devices>}`` mesh.
+    ``axes`` maps axis names to sizes, laid out row-major over the device
+    list (the cards of one host reach each other all to all at one rate,
+    so no order is better than another); default is a 1-D
+    ``{"dp": <all devices>}`` mesh.
     """
-    explicit = devices is not None
     if devices is None:
         devices = jax.devices()
     if axes is None:
@@ -25,16 +26,5 @@ def make_mesh(axes: dict[str, int] | None = None, devices=None) -> Mesh:
         raise ValueError(
             f"mesh axes {axes} need {np.prod(sizes)} devices, "
             f"have {len(devices)}")
-    if not explicit:
-        # topology-aware ordering: on a real TPU slice a naive row-major
-        # reshape can put non-ICI-adjacent chips on one mesh axis and
-        # push every psum over slow links
-        try:
-            from jax.experimental import mesh_utils
-
-            return Mesh(mesh_utils.create_device_mesh(sizes, devices),
-                        tuple(axes.keys()))
-        except Exception:
-            pass                       # fall back to row-major
     arr = np.asarray(devices).reshape(sizes)
     return Mesh(arr, tuple(axes.keys()))

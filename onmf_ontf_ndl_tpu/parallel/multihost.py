@@ -1,19 +1,19 @@
 """Multi-host (multi-process) entry point.
 
 The reference is single-process NumPy (SURVEY.md §2: no communication
-backend of any kind); the TPU-native framework's multi-host story is the
-JAX runtime itself: ``jax.distributed.initialize`` brings every process's
-local chips into one global device set, and the existing data-parallel
+backend of any kind); this framework's multi-host story is the JAX
+runtime itself: ``jax.distributed.initialize`` brings every process's
+local devices into one global device set, and the existing data-parallel
 layer (``parallel/dp.py`` shard_map + psum, ``parallel/auto.py`` GSPMD)
 runs unchanged over a mesh built from ``jax.devices()`` — the psum'd
-sufficient statistics ride ICI within a host and DCN across hosts, with
-XLA choosing the collective implementation.
+sufficient statistics ride NVLink within a host and the network across
+hosts, with XLA (NCCL) choosing the collective implementation.
 
-Typical pod-slice launch (same command on every host)::
+Typical multi-host launch (same command on every host)::
 
     from onmf_ontf_ndl_tpu.parallel import multihost
-    multihost.initialize()                  # autodetects on TPU pods
-    mesh = multihost.global_mesh()          # dp over ALL chips
+    multihost.initialize()                  # cluster autodetection
+    mesh = multihost.global_mesh()          # dp over ALL devices
     ... dp_train_dict(mesh, state, X_local_shard, ...)
 
 or explicitly, e.g. under a generic scheduler::
@@ -55,8 +55,8 @@ def initialize(coordinator_address: str | None = None,
                local_device_ids=None) -> None:
     """Join (or start) the distributed JAX runtime.
 
-    With no arguments, defers to JAX's cluster autodetection (TPU pod
-    environments, SLURM, ...). Explicit arguments follow
+    With no arguments, defers to JAX's cluster autodetection (SLURM,
+    ...); elsewhere pass the coordinator address, process count and id. Explicit arguments follow
     ``jax.distributed.initialize``; the process with ``process_id == 0``
     hosts the coordinator service at ``coordinator_address``.
 

@@ -7,7 +7,7 @@ reference simulator (``/root/reference/ising_simulator.py:9-147``):
   chain (one random site per step), as a ``lax.scan``; bit-for-bit the
   reference's update rule ``dE = 2*S0*(H + J*Sn)``, accept iff ``dE < 0``
   or ``u < exp(-dE/T)``. This is the tolerance-test kernel.
-- :func:`checkerboard_sweeps` — the TPU-fast kernel: alternating
+- :func:`checkerboard_sweeps` — the data-parallel kernel: alternating
   red/black half-lattice updates. Sites of one color are conditionally
   independent given the other, so the parallel update targets the same
   stationary distribution. The per-site acceptance here is heat-bath
@@ -21,7 +21,7 @@ reference simulator (``/root/reference/ising_simulator.py:9-147``):
   ergodic. One sweep performs n^2 single-site updates in two vectorized
   steps instead of n^2 sequential ones.
 
-Both vmap over an ensemble of lattices — the TPU way to scale a
+Both vmap over an ensemble of lattices — the way to scale a
 sequential-by-definition Markov chain (SURVEY.md §5 long-context note).
 
 Deviation (documented): the reference returns a ragged list of energies
@@ -131,7 +131,7 @@ def checkerboard_sweeps(
     H: float = 0.0,
     T: float = 0.5,
 ):
-    """Red/black parallel heat-bath sweeps — the hot TPU kernel.
+    """Red/black parallel heat-bath sweeps — the hot sampling kernel.
 
     One sweep = update all even-parity sites simultaneously, then all
     odd-parity ones, each flipped with the heat-bath probability

@@ -55,9 +55,9 @@ _CANDIDATE_DEG_FACTOR = 8
 _BSEARCH_DEG_THRESHOLD = 256
 
 # byte gate for the (D, k, M) slot-block forms in pair_matrices_T: past
-# ~HBM size the compiler stops fusing the block gather into its
-# consumer and buffer assignment fails outright (measured: facebook's
-# D=1045 x M=1.2M, 15 GB, remote-compile crash)
+# about a device's memory the compiler stops fusing the block gather
+# into its consumer and buffer assignment fails outright (facebook's
+# D=1045 x M=1.2M, 15 GB nominal)
 _SLOT_BLOCK_BYTES = 8 << 30
 
 __all__ = [
@@ -123,7 +123,7 @@ def _csr_row_slots(g, u):
     neighbor candidates of each node and their validity mask. Uses the
     padded ``nbr_pad_T`` table when the graph carries one (one gather of
     ``max_deg`` elements per row instead of offset + deg + slots —
-    gathered-element count is the measured cost of TPU gathers); valid
+    a gather costs per gathered element); valid
     slots are identical either way, so draws are too."""
     D = max(g.max_deg, 1)
     pad = getattr(g, "nbr_pad_T", None)
@@ -179,9 +179,8 @@ def _pair_membership_sortjoin(g, row: jax.Array, col: jax.Array,
     for LARGE query batches.
 
     Rationale (docs/DESIGN.md §5 "one sort beats many gathers"): the
-    binary search gathers ``log2(max_deg) + 3`` elements per query at
-    ~18-20 ns per gathered element; a two-key ``lax.sort`` costs ~6 ns
-    per element·operand. The CSR (src, dst) edge list is ALREADY sorted
+    binary search gathers ``log2(max_deg) + 3`` random elements per
+    query, while a two-key ``lax.sort`` streams its operands. The CSR (src, dst) edge list is ALREADY sorted
     (rows ascending, ascending within each row — the builders' lexsort
     contract), so membership for Q queries is: stable-sort the
     ``Q + 2E`` concatenated (i, j) pairs (edges first, so within an
@@ -190,8 +189,9 @@ def _pair_membership_sortjoin(g, row: jax.Array, col: jax.Array,
     ``cummax`` passes — no gathers at all), and restore query order
     with one payload sort. Total ~5 element·operand sort passes over
     ``Q + 2E`` versus ``Q * (log2(max_deg) + 3)`` gathered elements —
-    the win at reconstruction batch sizes on hub graphs (measured: the
-    4.2M-node BA recon's membership phase).
+    the win at reconstruction batch sizes on hub graphs (the cost
+    model that chooses between them was tuned on an earlier device and
+    is not yet measured on a GPU).
     """
     shape = row.shape
     qi = row.reshape(-1).astype(jnp.int32)
@@ -252,10 +252,9 @@ def _pair_membership(g, row: jax.Array, col: jax.Array,
 
 def _bitset_rows(g, idx: jax.Array) -> jax.Array:
     """(len(idx), W32) packed adjacency rows: a whole-row gather from
-    the canonical 2-D bitset. Measured ~16x faster than vmapped
-    ``dynamic_slice`` from a flattened copy (the chain-scan wall of the
-    side-180 torus reconstruction: 0.20 s vs 3.17 s) — see the layout
-    note on :class:`BitsetGraph`."""
+    the canonical 2-D bitset: one gather instead of vmapped
+    ``dynamic_slice`` from a flattened copy — see the layout note on
+    :class:`BitsetGraph`."""
     return g.bits[idx]
 
 
@@ -300,9 +299,8 @@ def pair_matrices_T(g, embs: jax.Array, *,
 
     The batch axis is kept MINOR throughout. The vmapped form builds
     gather index tensors whose minor dims are (k, k); XLA pads those to
-    full register/tile extents — measured 43-57x HBM expansion at
-    reconstruction scale (a 165 MB unpadded index tensor padded to
-    9.2 GB OOMed the 129,600-node torus reconstruction). Here every
+    full tile extents, a many-fold expansion of device memory at
+    reconstruction scale. Here every
     intermediate is (k*k, M) with M minor, i.e. tile-dense.
 
     Every gather indexes the matrix operand with PER-DIMENSION (row,
@@ -327,19 +325,16 @@ def pair_matrices_T(g, embs: jax.Array, *,
         return g.weight.at[row, col].get(mode="clip").astype(jnp.float32)
     pad = getattr(g, "nbr_pad_T", None)
     # The (D, k, M) slot block must fuse into the compare+any reduction
-    # (it does for the measured cases: 7.3 GB nominal at arxiv's
-    # D=504 x M=1.2M runs in 0.074 s, 2x faster than the word-gather) —
-    # but past ~HBM size the compiler stops fusing and buffer
-    # assignment fails outright (measured: facebook's D=1045 x M=1.2M,
-    # 15 GB, remote-compile crash), so gate by the nominal block bytes
+    # (as at arxiv's D=504 x M=1.2M, 7.3 GB nominal) — but past about a
+    # device's memory the compiler stops fusing and buffer assignment
+    # fails outright (facebook's D=1045 x M=1.2M, 15 GB nominal), so
+    # gate by the nominal block bytes
     # and fall back to the word/triple paths for high-degree graphs at
     # large sample counts.
     if pad is not None and pad.shape[0] * k * M * 4 <= _SLOT_BLOCK_BYTES:
         # padded-row membership (CSR and bitset alike): ONE gather of
         # the (D, k, M) per-NODE slot block + broadcast compare — see
-        # the CsrGraph branch below for the layout rules. Measured at
-        # the 1M-node torus: 0.35 s vs 6.2 s for the CSR-triple
-        # per-node form.
+        # the CsrGraph branch below for the layout rules.
         slots = pad.at[:, eT].get(mode="clip")             # (D, k, M)
         hit = slots[:, :, None, :] == eT[None, None, :, :]
         return jnp.any(hit, axis=0).reshape(k * k, M).astype(jnp.float32)
@@ -377,11 +372,10 @@ def pair_matrices_T(g, embs: jax.Array, *,
         # (D, k, M), k rows — and every ordered pair (q, r) tests
         # eT[r] against node q's slots by broadcast compare. (The
         # k^2-pair form gathered the same rows per ORDERED PAIR, 3x
-        # the elements — the measured wall of CSR reconstruction at
-        # the 262k-node torus, 9.5 s; values identical.) Slot axis
-        # OUTERMOST, sample axis minor — a (.., M, D) layout with
-        # D ~ 4 would pad the minor dim to a full 128-lane tile (the
-        # 32x blowup this function exists to avoid).
+        # the elements; values identical.) Slot axis OUTERMOST, sample
+        # axis minor — a (.., M, D) layout with D ~ 4 would pad the
+        # minor dim to a full 128-wide tile (the blowup this function
+        # exists to avoid).
         D = max(g.max_deg, 1)
         d_idx = jnp.arange(D, dtype=jnp.int32)[:, None, None]
         off = g.offsets.at[eT].get(mode="clip")            # (k, M)
@@ -401,8 +395,8 @@ def _uniform_from_mask(key: jax.Array, mask: jax.Array) -> jax.Array:
     Implemented as ONE uniform draw + cumsum rank-select (identical law
     to a masked categorical): a Gumbel categorical generates N random
     floats per draw, which at ensemble scale (8192 chains x 65536
-    nodes) is ~0.5G threefry evaluations per chain step — the measured
-    wall of the reconstruction sampler. Rank selection needs no
+    nodes) is ~0.5G threefry evaluations per chain step. Rank
+    selection needs no
     per-node randomness at all."""
     c = jnp.cumsum(mask.astype(jnp.int32))
     total = c[-1]
@@ -521,10 +515,10 @@ def glauber_update(key: jax.Array, B: np.ndarray, parents: tuple[int, ...],
     if (valid.shape[0] > 0 and isinstance(g, CsrGraph)
             and g.max_deg > _BSEARCH_DEG_THRESHOLD):
         # sorted-multiplicity intersection for the hub-row regime.
-        # Gathers cost per ELEMENT on TPU, so the per-candidate binary
-        # search below (log2(max_deg) * max_deg gathered elements per
-        # constraint per chain step) is the measured training wall on
-        # power-law graphs — hub rows are not rare visits there, the
+        # Gathers cost per ELEMENT, so the per-candidate binary search
+        # below (log2(max_deg) * max_deg gathered elements per
+        # constraint per chain step) dominates training on power-law
+        # graphs — hub rows are not rare visits there, the
         # chain's stationary law WEIGHTS nodes by homomorphism count.
         # Instead gather every constraint row once (slots * max_deg
         # elements), sentinel-fill the dead slots, and sort the values:
@@ -535,7 +529,7 @@ def glauber_update(key: jax.Array, B: np.ndarray, parents: tuple[int, ...],
         # sort is ascending, so rank-selecting the target-th run start
         # picks the same VALUE as the candidate-list cumsum below —
         # identical draws (tested hub-vs-dense), ~14x fewer gathered
-        # elements (measured 4.2M-node BA train: 93 s -> the sort cost).
+        # elements.
         n = g.num_nodes
         S = valid.shape[0]
         D = max(int(g.max_deg), 1)
@@ -705,7 +699,7 @@ def sample_patches_ensemble(key: jax.Array, g: Graph, emb0: jax.Array,
                             weighted: bool = False):
     """Vmapped chain ensemble: ``emb0`` is (C, k); returns
     ``(X, embs)`` with X of shape (k^2, C*num) — C chains advanced
-    ``num`` steps each. The TPU-scale replacement for one long chain."""
+    ``num`` steps each. The parallel replacement for one long chain."""
     parents = tree_parents(B)
     B_bytes = np.asarray(B, np.int8).tobytes()
     return _sample_patches_ensemble_impl(key, g, emb0, B_bytes, parents,

@@ -58,7 +58,7 @@ def random_lattices(key, num):
 
 
 def test_metropolis_matches_boltzmann_2x2():
-    # Ensemble of independent chains: the TPU-style way to sample a
+    # Ensemble of independent chains: the data-parallel way to sample a
     # sequential-by-definition Markov chain. High T for fast mixing.
     J, H, T = 1.0, 0.3, 5.0
     target = boltzmann_2x2(J, H, T)
@@ -141,20 +141,6 @@ def test_exact_sampler_in_app():
     _, dict_stack, errors = rec.ising_mcmc_learning()
     assert dict_stack.shape == (3, 9, 4)
     assert np.isfinite(np.asarray(errors)).all()
-
-
-def test_pallas_sampler_option_requires_tpu():
-    # on CPU the pallas sampler cannot run (no TPU PRNG lowering); the
-    # option is exercised on-device in verification drives. Here we only
-    # check the option routes without breaking the default path.
-    rec = IsingReconstructor(
-        n_components=4, lattice_size=8, ising_iterations=1,
-        ising_subsampling_steps=10, sub_iterations=2, num_patches=5,
-        batch_size=3, patch_size=3, sampler="checkerboard",
-        dtype=jnp.float64,
-    )
-    _, stack, errors = rec.ising_mcmc_learning()
-    assert stack.shape[0] == 2
 
 
 def test_keep_trajectory_flag():

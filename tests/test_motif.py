@@ -334,7 +334,8 @@ def test_pair_matrices_T_matches_vmapped_single():
     """pair_matrices_T (batch-minor layout, 1-D linear gathers) must
     equal the vmapped per-sample _pair_matrix on every representation:
     it exists purely to avoid the tiny-minor-dim padding blowup of the
-    vmapped gather (57x HBM expansion at reconstruction scale)."""
+    vmapped gather (a many-fold memory expansion at reconstruction
+    scale)."""
     from onmf_ontf_ndl_tpu.data.graphs import bitset_graph_from_edges
     from onmf_ontf_ndl_tpu.samplers.motif import (
         _pair_matrix, pair_matrices_T)

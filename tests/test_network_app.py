@@ -622,7 +622,7 @@ def test_bitonic_merge_fold_property():
         # identical reals, pre-truncation n_real, padded tail. The
         # returned width is min(out_len, merged width): the exact-width
         # full-sort path (taken when power-of-two padding would exceed
-        # 25% — the heavy-tail fold's HBM guard) merges at cap+L slots
+        # 25% — the heavy-tail fold's memory guard) merges at cap+L slots
         # and the [:out_len] slice clamps; the caller re-derives the
         # accumulator length from the returned arrays either way
         a2 = sorted_grouped(cap, min(cap, 30))
@@ -736,7 +736,7 @@ def test_heavy_tail_ba_ndl_end_to_end():
 
 
 def test_partitioned_fold_matches_single_accumulator(monkeypatch):
-    """The key-range-partitioned fold (the HBM guard that lifts the
+    """The key-range-partitioned fold (the memory guard that lifts the
     16.7M-node heavy-tail budget cap: sort scratch ~2x a PART instead
     of 2x the whole accumulator) must produce exactly the same
     per-pair (mean, cnt) map as the single-accumulator path on the

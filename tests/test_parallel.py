@@ -234,7 +234,7 @@ def test_dp_ndl_train_bitset_graph():
 
 
 def test_dp_train_dict_block_sampling():
-    """The TPU-native block sampler works shard-locally under DP
+    """The block sampler works shard-locally under DP
     (PARITY.md deviation #12): valid replicated result, deterministic."""
     mesh = make_mesh({"dp": 8})
     d, r, n = 20, 5, 80

@@ -131,7 +131,7 @@ def test_hamiltonian_matches_reference(ref):
         lat = np.random.default_rng(seed).choice([-1, 1], size=(6, 6))
         want = ref.ising.hamiltonian(lat, J, H)
         got = float(hamiltonian(jnp.asarray(lat, jnp.float64), J, H))
-        # our hamiltonian computes in f32 by design (TPU-native)
+        # our hamiltonian computes in f32 by design
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 

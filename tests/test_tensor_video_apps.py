@@ -1,6 +1,9 @@
 """Tests for the ONTF color-tensor app and the streaming video app."""
 
+import os
+
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from onmf_ontf_ndl_tpu.apps.image_tensor import ImageReconstructorTensor, unfolded_dim
@@ -72,6 +75,10 @@ def test_video_streaming():
 def test_video_gif_loader():
     from onmf_ontf_ndl_tpu.data.video import load_video_frames
 
+    from test_reference_parity import REF
+
+    if not os.path.isdir(REF):
+        pytest.skip("the reference checkout is not present")
     frames = load_video_frames("/root/reference/Data/Video/giphy-2.gif",
                                max_frames=3)
     assert frames.ndim == 4 and frames.shape[0] == 3 and frames.shape[3] == 3

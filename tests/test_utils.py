@@ -174,15 +174,6 @@ def test_invalid_sampler_rejected():
         IsingReconstructor(sampler="metropolis")
 
 
-def test_explicit_pallas_honored_for_both_coder_modes():
-    # since the early-stopping kernel (coder_sweeps_earlystop) exists,
-    # an explicit backend="pallas" is honored for stopping calls too
-    from onmf_ontf_ndl_tpu.ops.pallas import resolve_backend
-
-    assert resolve_backend("pallas", True) == "pallas"
-    assert resolve_backend("pallas", False) == "pallas"
-
-
 def test_viz_color_combine(tmp_path):
     from onmf_ontf_ndl_tpu.utils import viz
 
